@@ -1,6 +1,6 @@
-"""hcmvs_tpu — a TPU-native SfM+MVS framework.
+"""hcmvs_tpu — an SfM+MVS framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capability set of HC-MVS
+A ground-up JAX/XLA re-design of the capability set of HC-MVS
 (reference: Liaoyongjian1/HC-MVS, an OpenMVS v1.1.1 fork pair + driver layer):
 
 - ``sfm``      : feature detection/matching, two-view geometry, incremental
@@ -14,7 +14,7 @@ A ground-up JAX/XLA/Pallas re-design of the capability set of HC-MVS
 - ``mesh``     : surface reconstruction, variational refinement, texturing
                  (ref: SceneReconstruct.cpp, SceneRefine[CUDA].cpp,
                  SceneTexture.cpp).
-- ``ops``      : Pallas TPU kernels + pure-JAX reference implementations.
+- ``ops``      : gather samplers, gradients and the table lookup engines.
 - ``parallel`` : multi-chip sharding (view axis / tile axis) over
                  jax.sharding.Mesh; replaces the reference's pthread pools
                  and file-based stage handoff.

@@ -1,6 +1,6 @@
 """Pinhole camera model as a JAX pytree.
 
-TPU-native analog of the reference camera layer
+Batched analog of the reference camera layer
 (ref: frame_main/libs/MVS/Camera.h:55-68 — K/R/C decomposition,
 TransformPointI2W/W2C/C2I and friends).  Unlike the reference's scalar C++
 methods, every op here is shape-polymorphic over leading batch axes so a
@@ -22,9 +22,10 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-# Geometry runs on tiny 3x3 systems where bf16 MXU passes lose ~3 decimal
-# digits; force full fp32 for every contraction in this module (the cost is
-# negligible — these ops are bandwidth-bound VPU work).
+# Geometry runs on tiny 3x3 systems where reduced-precision matmul passes
+# (TF32 on Hopper keeps ~3 decimal digits) lose accuracy; force full fp32
+# for every contraction in this module (the cost is negligible — these ops
+# are tiny).
 jnp_einsum = functools.partial(jnp.einsum,
                                precision=jax.lax.Precision.HIGHEST)
 
@@ -141,7 +142,7 @@ def plane_homography(ref: Camera, src: Camera, n: jax.Array,
 
     The plane is ``n . X = d_plane`` in ref-camera coordinates (``n`` unit,
     pointing toward the camera so ``d_plane < 0`` for OpenMVS-convention
-    normals).  This is the TPU analog of the per-view homography constants
+    normals).  This is the batched analog of the per-view homography constants
     precomputed by the reference estimator
     (ref: frame_main/libs/MVS/DepthMap.h:412-444 — Hl/Hm/Hr).
     """

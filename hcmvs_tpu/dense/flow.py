@@ -5,35 +5,32 @@ best neighbor during InitViews (ref: frame_main/libs/MVS/SceneDensify.cpp:
 404-508, cv::calcOpticalFlowFarneback at :470) and scores PatchMatch
 hypotheses against it (score_flow, dense/score.py flow_score).
 
-Two backends:
-- ``farneback``: OpenCV on the host, exactly like the reference.
-- ``lk`` (default when cv2 is unavailable): TPU-native pyramidal
-  Lucas-Kanade — coarse-to-fine warp + windowed normal equations, all
-  jittable (box sums via lax.reduce_window, warps via the packed-tap
-  bilinear sampler).
+Two backends, chosen by ``DenseConfig.flow_backend``:
+- ``lk`` (default): pyramidal Lucas-Kanade in JAX — coarse-to-fine warp
+  + windowed normal equations, all jittable (box sums via
+  lax.reduce_window, warps via the packed-tap bilinear sampler).
+- ``farneback``: OpenCV on the host, exactly like the reference; needs
+  the optional OpenCV install.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-try:
-    import cv2
-    _HAVE_CV2 = True
-except Exception:                                    # pragma: no cover
-    cv2 = None
-    _HAVE_CV2 = False
 
 
 def farneback_flow(ref_gray: np.ndarray, nbr_gray: np.ndarray,
                    pyr_scale: float = 0.5, levels: int = 3,
                    winsize: int = 15, iterations: int = 3) -> np.ndarray:
     """(2, H, W) planes-first flow ref -> neighbor (u, v)."""
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError(
+            "flow_backend='farneback' needs OpenCV (pip install "
+            "'hcmvs-tpu[io]'); use flow_backend='lk' without it") from None
     a = np.clip(ref_gray * 255, 0, 255).astype(np.uint8)
     b = np.clip(nbr_gray * 255, 0, 255).astype(np.uint8)
     flow = cv2.calcOpticalFlowFarneback(
@@ -49,7 +46,7 @@ def _box_sum(x, r: int):
 @partial(jax.jit, static_argnames=("levels", "iters", "radius"))
 def lk_flow(ref: jax.Array, nbr: jax.Array, levels: int = 3,
             iters: int = 5, radius: int = 7) -> jax.Array:
-    """TPU-native dense pyramidal Lucas-Kanade: (2, H, W) flow ref->nbr.
+    """Dense pyramidal Lucas-Kanade: (2, H, W) flow ref->nbr.
 
     Coarse-to-fine: at each pyramid level the neighbor is warped by the
     upsampled flow (packed-tap bilinear gather), image gradients and the
@@ -103,11 +100,11 @@ def lk_flow(ref: jax.Array, nbr: jax.Array, levels: int = 3,
 
 
 def scene_flows(grays: np.ndarray, nbr_idx: np.ndarray,
-                backend: Optional[str] = None) -> np.ndarray:
+                backend: str = "lk") -> np.ndarray:
     """(N, 2, H, W) flow from each view to its best (first) neighbor —
     the flow_images analog (ref: DepthData.flow_images, DepthMap.h:242)."""
-    if backend is None:
-        backend = "farneback" if _HAVE_CV2 else "lk"
+    if backend not in ("lk", "farneback"):
+        raise ValueError(f"unknown flow backend {backend!r}")
     n = len(grays)
     flows = np.zeros((n, 2) + grays[0].shape, np.float32)
     for i in range(n):

@@ -1,6 +1,6 @@
 """Cross-view depth filtering, gap interpolation, and point-cloud fusion.
 
-TPU-first re-design of the reference's multi-view fusion stack:
+Data-parallel re-design of the reference's multi-view fusion stack:
 - ``cross_view_filter`` — the consistency vote + fused-map computation the
   reference hides inside the hijacked RemoveSmallSegments
   (ref: frame_main/libs/MVS/SceneDensify.cpp:1953-2276) and FilterDepthMap

@@ -1,6 +1,6 @@
 """Checkerboard PatchMatch sweeps — the core depth-map estimator.
 
-TPU-first re-design of the reference's sequential zig-zag PatchMatch
+Data-parallel re-design of the reference's sequential zig-zag PatchMatch
 (ref: frame_main/libs/MVS/DepthMap.cpp:1050-1668 ProcessPixel and
 frame_main/libs/MVS/SceneDensify.cpp:758-1072 EstimateDepthMap):
 
@@ -58,10 +58,7 @@ class ScoreContext:
     inject_normal: Optional[jax.Array] = None  # (3, H, W) hypothesis maps
     vol: Optional[object] = None       # ops.volume.VolumeTables (V-batched)
                                        # routing exact scoring through the
-                                       # sigma-sweep lane-gather kernel
-    vol_bounds: Optional[jax.Array] = None  # (V, P_pad, 128) u16 kernel
-                                       # bounds panels (score.volume_bounds)
-                                       # — hoisted to once per sweep call
+                                       # sigma-sweep tables
     rect: Optional[object] = None      # ops.rect_gather.RectContext —
                                        # rectified-epipolar neighbor-map
                                        # lookups for the geo term and
@@ -189,10 +186,8 @@ def _perturb(key: jax.Array, depth: jax.Array, normal: jax.Array,
 def _select_by_index(stack: jax.Array, k_star: jax.Array) -> jax.Array:
     """stack[k_star[p], ..., p] via an unrolled where-chain.
 
-    NEVER use take_along_axis for this on TPU: indexing the candidate
-    axis per pixel is a per-index gather (~120M idx/s — measured 3s/round
-    regression at 1280x960); the unrolled chain fuses into one
-    elementwise pass over the K panels."""
+    The unrolled chain fuses into one elementwise pass over the K panels
+    instead of a per-pixel gather along the candidate axis."""
     k_n = stack.shape[0]
     sel = stack[0]
     for k in range(1, k_n):
@@ -207,7 +202,7 @@ def _batched_best(ctx: ScoreContext, cd: jax.Array, cn: jax.Array,
                   cv: jax.Array, biases, init, cur_d: jax.Array,
                   cur_n: jax.Array, delta_c2pmax: jax.Array,
                   cfg: DenseConfig, phase: int, offsets) -> tuple:
-    """Score a (K, ...) candidate stack through the batched volume kernel
+    """Score a (K, ...) candidate stack through the batched volume lookup
     and fold to (best_cost, best_index).
 
     The photometric term of all K candidates rides one multi-column
@@ -222,7 +217,7 @@ def _batched_best(ctx: ScoreContext, cd: jax.Array, cn: jax.Array,
     """
     ncc_all, bad_all = S.photometric_scores_volume_batched(
         ctx.geom, ctx.vol, ctx.stats, ctx.hw, cd, cn, ctx.rays, offsets,
-        cfg, bounds_all=ctx.vol_bounds)
+        cfg)
     k_n = cd.shape[0]
     h, w = cur_d.shape
     if biases is None:
@@ -280,7 +275,7 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
                 jnp.where(better[None], n_cand, bn),
                 jnp.where(better, c, bc))
 
-    # batched-kernel candidate path: the photometric term of EVERY
+    # batched-lookup candidate path: the photometric term of EVERY
     # candidate rides one multi-column volume-lookup call per view
     # (score.photometric_scores_volume_batched); only active when exact
     # scoring would route through the tables for this phase
@@ -335,7 +330,7 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
 
     if use_batch:
         # current state is candidate 0; every candidate's photometric
-        # term comes from ONE multi-column kernel call per view, and the
+        # term comes from ONE batched table lookup per view, and the
         # fold carries only (cost, argmin-index) — the 5-plane best-state
         # scan carry of the per-candidate path was measured at ~20% of
         # the flagship device round (r4 roofline)
@@ -393,7 +388,7 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
 
     if use_batch and cfg.refine_batched:
         # all annealed scales perturb the POST-PROPAGATION best and score
-        # as one batched candidate set (one more kernel table pass instead
+        # as one batched candidate set (one more table pass instead
         # of R); the cross-scale injection joins this batch with its 0.1
         # bias, so it is still compared against the refined incumbent
         bd, bn, bc = best

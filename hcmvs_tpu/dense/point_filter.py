@@ -18,7 +18,7 @@ projected point's votes against its bucket with prefix sums + binary
 search — exact pairwise semantics (every observation votes), O((N+M)logM)
 per view instead of the reference's octree cone walks, fully vectorized.
 This stage is host-side bookkeeping around the fused cloud (like the
-reference's), not a TPU kernel: it runs once per scene on ragged data.
+reference's), not a device kernel: it runs once per scene on ragged data.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Planar priors: superpixel segmentation + robust per-segment plane fits.
 
-TPU-first re-design of the reference's prior stack
+Data-parallel re-design of the reference's prior stack
 (ref: frame_main/libs/MVS/SceneDensify.cpp:4010-4090 LSC_superpixel,
 :1171-1545 GenerateSuperDepthPrior, :1550-1950 GenerateDepthPrior,
 :1079-1161 GenerateFinalPrior):
@@ -177,7 +177,7 @@ def prior_depth_map(labels: jax.Array, planes: jax.Array,
 
 def inv_depth_spacing(depth: jax.Array) -> jax.Array:
     """Data-driven residual scale: median |Δ inverse depth| between
-    horizontally adjacent valid pixels — the TPU-native analog of the
+    horizontally adjacent valid pixels — the batched analog of the
     reference's CGAL ``compute_average_spacing`` that anchors every
     fransac* threshold (ref: SceneDensify.cpp:1335,1362 —
     ``epsilon = average_spacing * fransacEpsilonMul``).  Returns a traced

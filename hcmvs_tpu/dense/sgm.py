@@ -1,6 +1,6 @@
 """Semi-global matching: the alternative stereo path (fusion modes -1/-2).
 
-TPU-first re-design of the reference's SGM
+Data-parallel re-design of the reference's SGM
 (ref: frame_main/libs/MVS/SemiGlobalMatcher.{h,cpp} — census transform,
 WTA over an 8-path aggregated cost volume, left-right consistency check,
 sub-pixel refinement; invoked via DensifyPointCloud --fusion-mode -1/-2,
@@ -13,7 +13,7 @@ SceneDensify.cpp:3899-3911):
   one warp per hypothesis amortizes over all pixels.
 - Path aggregation is the classic dynamic program, expressed as
   ``lax.scan`` along rows/columns in both directions — the textbook
-  TPU-friendly scan pattern (SURVEY §2.3).
+  accelerator-friendly scan pattern (SURVEY §2.3).
 """
 
 from __future__ import annotations

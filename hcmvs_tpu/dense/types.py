@@ -1,6 +1,6 @@
 """Pytree state and precomputed geometry for the PatchMatch engine.
 
-TPU-native replacements for the reference's per-image working set
+Batched replacements for the reference's per-image working set
 (ref: frame_main/libs/MVS/DepthMap.h:214-348 ``DepthData`` and
 :412-444 ``ViewData`` homography constants).  The reference precomputes
 per-view homography factors Hl/Hm/Hr so each pixel's plane homography is a
@@ -8,13 +8,11 @@ rank-1 update; we keep the same factorization — ``H p = A p + wv * (n.ray(p)
 / d_plane)`` — so per-pixel, per-candidate warps cost a handful of FMAs and
 never materialize 3x3 matrices per pixel.
 
-LAYOUT RULE (load-bearing for TPU performance): per-pixel vector fields
-(normals, rays, 3D points) are stored planes-first — shape ``(3, H, W)`` —
-never ``(H, W, 3)``.  A minor dimension of 3 occupies 3 of the VPU's 128
-lanes (2.3% utilization) and every op on such arrays relayouts; measured
-~400x slower on v5e for the homography warp.  All hot-path math expands
+LAYOUT RULE: per-pixel vector fields (normals, rays, 3D points) are stored
+planes-first — shape ``(3, H, W)`` — never ``(H, W, 3)``: a minor dimension
+of 3 makes every elementwise op strided.  All hot-path math expands
 3-vector algebra into scalar-coefficient elementwise ops on (H, W) planes
-(see ``mat3_apply`` / ``dot3``).
+(see ``mat3_apply`` / ``dot3``), so no matmul runs on the dense path.
 """
 
 from __future__ import annotations
@@ -31,7 +29,7 @@ from hcmvs_tpu.core.camera import Camera, jnp_einsum, relative_motion, skew
 def mat3_apply(M: jax.Array, v) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """``M @ v`` with M (3, 3) and v a 3-tuple/array of (H, W) planes.
 
-    Expands to 9 scalar-broadcast FMAs — the TPU-friendly form of the
+    Expands to 9 scalar-broadcast FMAs — the planes-first form of the
     (H, W, 3) einsum.
     """
     vx, vy, vz = v[0], v[1], v[2]

@@ -1,6 +1,6 @@
 """Neighbor-view selection from sparse covisibility.
 
-TPU-native analog of the reference's per-image neighbor scoring
+Batched analog of the reference's per-image neighbor scoring
 (ref: frame_main/libs/MVS/SceneDensify.cpp:307-327 SelectViews and
 Scene::SelectNeighborViews): each image pair is scored by the sparse points
 they co-observe, weighted by triangulation angle (peaked at fOptimAngle).

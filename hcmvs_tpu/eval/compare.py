@@ -19,9 +19,9 @@ def compare_depth_maps(depth: np.ndarray, depth_gt: np.ndarray,
                        threshold: float = 0.01) -> Dict[str, float]:
     """Per-pixel depth error stats (ref: CompareDepthMaps semantics:
     relative error against GT, plus extra/missing coverage)."""
-    import cv2
+    from hcmvs_tpu.io.images import resize_to
     if depth_gt.shape != depth.shape:
-        depth_gt = cv2.resize(depth_gt, (depth.shape[1], depth.shape[0]))
+        depth_gt = resize_to(depth_gt, depth.shape[0], depth.shape[1])
     est = depth > 0
     gt = depth_gt > 0
     both = est & gt

@@ -176,8 +176,8 @@ def run_hierarchy(h: int = 144, w: int = 192, n_views: int = 5,
     hierarchy is designed to deliver."""
     import os
     import tempfile
-    import cv2
     from hcmvs_tpu.core.config import DenseConfig
+    from hcmvs_tpu.io.images import write_png
     from hcmvs_tpu.io.mvs import write_mvs
     from hcmvs_tpu.pipeline.hierarchy import Stage, densify_hierarchical
     from hcmvs_tpu.sfm.incremental import (SfMConfig, incremental_sfm,
@@ -201,8 +201,8 @@ def run_hierarchy(h: int = 144, w: int = 192, n_views: int = 5,
     img_dir = os.path.join(tmp, "images")
     os.makedirs(img_dir)
     for i in range(n_views):
-        cv2.imwrite(os.path.join(img_dir, f"im{i:04d}.png"),
-                    (sc.images[i] * 255).astype(np.uint8))
+        write_png(os.path.join(img_dir, f"im{i:04d}.png"),
+                  (sc.images[i] * 255).astype(np.uint8))
     scene = sfm_to_scene(res, K, [f"im{i:04d}.png"
                                   for i in range(n_views)], w, h)
     scene_path = os.path.join(tmp, "scene.mvs")
@@ -271,6 +271,8 @@ def main():
                     help="full-stack components to disable "
                          "(priors,viewspread,optimize,part)")
     args = ap.parse_args()
+    from hcmvs_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.hierarchy or args.full_stack:
         print(json.dumps(run_hierarchy(
             h=args.h, w=args.w, n_views=args.views, fx=args.fx,

@@ -1,6 +1,6 @@
 """Quality-vs-resolution instrumentation: per-external-iteration depth
 accuracy on the ridge golden scene at configurable size / focal length /
-schedule knobs (TPU or CPU).
+schedule knobs (default device, or --cpu).
 
     python -m hcmvs_tpu.eval.quality_ladder --h 480 --w 640 --fx 600
 
@@ -43,9 +43,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/hcmvs_bench_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from hcmvs_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
     from hcmvs_tpu.core.camera import Camera

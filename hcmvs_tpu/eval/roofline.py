@@ -1,19 +1,15 @@
-"""MFU/roofline accounting for the flagship dense bench.
+"""Per-stage accounting for the flagship dense bench.
 
 Measures, per stage of one bench round (the 2-sweeps x 2-phases unit of
-bench.py) on the real chip in the stable sync mode: device wall, the
-analytic index volume (sigma-table lookups / rect lookups / XLA
-per-index gathers) and HBM bytes, against the measured ceilings:
+bench.py): wall time to ``block_until_ready`` (median of rounds) and the
+analytic sample volume (patch samples / sigma-table lookups / neighbor
+lookups) with the rate it implies.  Peak-rate tables and roofline shares
+belong with the benchmark, keyed by device kind.
 
-  Mosaic lane-gather  ~45 G lookups/s   (ops/volume.py, measured r2)
-  XLA per-index       ~120 M indices/s  (measured r1/r2)
-  HBM                 ~800 GB/s         (v5e spec class)
-
-    python -m hcmvs_tpu.eval.roofline             # real TPU
+    python -m hcmvs_tpu.eval.roofline             # default device
     python -m hcmvs_tpu.eval.roofline --h 480 --w 640 --cpu   # smoke
 
-Prints one JSON report.  Round-4 verdict item #3: identify where the
-remaining headroom is before optimizing.
+Prints one JSON report.
 """
 
 from __future__ import annotations
@@ -44,9 +40,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/hcmvs_bench_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from hcmvs_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
@@ -78,24 +73,22 @@ def main():
     print(f"[roofline] AOT {time.perf_counter() - t0:.1f}s",
           file=sys.stderr, flush=True)
 
-    # warmup + flip to sync mode
-    st = c_photo(state, scene_v)
-    st = c_geo(st, scene_v)
-    _ = float(np.asarray(st.depth[0, 0, 0]))
+    # warmup
+    st = jax.block_until_ready(c_geo(c_photo(state, scene_v), scene_v))
 
     def timed(fn, *a):
-        best = np.inf
+        times = []
         out = None
         for _ in range(args.rounds):
             t0 = time.perf_counter()
-            out = fn(*a)
-            leaf = jax.tree.leaves(out)[0]
-            _ = float(np.asarray(leaf.reshape(-1)[0]))
-            best = min(best, time.perf_counter() - t0)
-        return best, out
+            out = jax.block_until_ready(fn(*a))
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)), out
 
+    dev = jax.devices()[0]
     report = {"w": w, "h": h, "views": n, "nbrs": v,
-              "platform": jax.default_backend()}
+              "platform": dev.platform, "device_kind": dev.device_kind,
+              "device_count": len(jax.devices())}
 
     # --- stage 1: sigma-table build ---
     if use_vol:
@@ -107,11 +100,10 @@ def main():
         # per table entry
         n_entries = n * v * h * w * D_PLANES
         report["table_build"] = {
-            "wall_s": round(t_build, 3),
-            "hbm_bytes_written": tab_bytes,
+            "wall_s": t_build,
+            "bytes_written": tab_bytes,
             "entries": n_entries,
-            "entries_per_s_G": round(n_entries / t_build / 1e9, 2),
-            "write_GBps": round(tab_bytes / t_build / 1e9, 1),
+            "entries_per_s_G": n_entries / t_build / 1e9,
         }
 
     # --- stage 2: photometric sweeps ---
@@ -125,16 +117,10 @@ def main():
     t_photo, _ = timed(c_photo, state, scene_v)
     lookups_photo = n * v * h * w * n_patch * n_cand * iters
     report["photometric"] = {
-        "wall_s": round(t_photo, 3),
+        "wall_s": t_photo,
         "candidates_per_px": n_cand, "patch_taps": n_patch,
-        "table_lookups": lookups_photo,
-        "lookups_per_s_G": round(lookups_photo / t_photo / 1e9, 2),
-        "vs_mosaic_ceiling_45G": round(
-            lookups_photo / t_photo / 45e9, 3),
-        # every candidate's taps re-read the (P, D) table tile: HBM
-        # traffic ~ tab bytes per sweep iteration (VMEM-tiled)
-        "hbm_GBps_lower_bound": round(
-            (n * v * h * w * D_PLANES * 2) * iters / t_photo / 1e9, 1),
+        "patch_samples": lookups_photo,
+        "samples_per_s_G": lookups_photo / t_photo / 1e9,
     }
 
     # --- stage 3: geometric sweeps (adds rect-engine neighbor reads) ---
@@ -143,27 +129,24 @@ def main():
     n_cand_g = 1 + n_prop + g_cfg.random_iters
     t_geo, _ = timed(c_geo, st, scene_v)
     lookups_geo = n * v * h * w * n_patch_g * n_cand_g * iters
-    # geo term: one rect lookup (4 taps packed) per candidate per view;
-    # view-spread adds v more per pixel per iteration
-    rect_lookups = n * v * h * w * n_cand_g * iters
+    # geo term: one neighbor-map lookup (depth + normal) per candidate
+    # per view
+    nbr_lookups = n * v * h * w * n_cand_g * iters
     report["geometric"] = {
-        "wall_s": round(t_geo, 3),
+        "wall_s": t_geo,
         "candidates_per_px": n_cand_g, "patch_taps": n_patch_g,
-        "table_lookups": lookups_geo,
-        "rect_lookups": rect_lookups,
-        "lookups_per_s_G": round(
-            (lookups_geo + rect_lookups) / t_geo / 1e9, 2),
-        "vs_mosaic_ceiling_45G": round(
-            (lookups_geo + rect_lookups) / t_geo / 45e9, 3),
+        "patch_samples": lookups_geo,
+        "nbr_lookups": nbr_lookups,
+        "samples_per_s_G": (lookups_geo + nbr_lookups) / t_geo / 1e9,
     }
 
     round_s = t_photo + t_geo
     build_share = (report.get("table_build", {}).get("wall_s", 0.0)
                    * (2 * cfg.estimation_iters) / 12.0)
     report["round"] = {
-        "wall_s": round(round_s, 3),
-        "views_per_s": round(n / (round_s + build_share), 3),
-        "build_share_s": round(build_share, 3),
+        "wall_s": round_s,
+        "views_per_s": n / (round_s + build_share),
+        "build_share_s": build_share,
     }
     print(json.dumps(report), flush=True)
 

@@ -2,7 +2,7 @@
 
 The reference ships an interactive GLFW/OpenGL Viewer app
 (ref: frame_main/apps/Viewer/Scene.cpp:268 — orbit camera over the scene's
-point cloud / mesh).  The TPU-native framework targets headless
+point cloud / mesh).  The framework targets headless
 datacenter use, so the equivalent is an EXPORTED viewer: one `.html` file
 with the geometry embedded (base64) and a dependency-free WebGL orbit
 renderer — open it in any browser, no server, no network access.

@@ -1,6 +1,6 @@
 """Surface reconstruction: Delaunay tetrahedralization + s-t graph cut.
 
-The TPU-native answer to the reference's CGAL + IBFS pipeline
+This framework's answer to the reference's CGAL + IBFS pipeline
 (ref: frame_main/libs/MVS/SceneReconstruct.cpp:768 Scene::ReconstructMesh —
 3D Delaunay, visibility-ray capacity accumulation, IBFS max-flow, facet
 extraction).  This stage is the one genuinely host-bound part of the

@@ -73,7 +73,7 @@ def decimate_mesh_qem(vertices: np.ndarray, faces: np.ndarray,
     planes; each collapse places the merged vertex at the quadric-optimal
     position (midpoint fallback on singular quadrics) and skips collapses
     that flip incident face normals.  Host-side (pointer-chasing is the
-    one workload that does not map to the TPU; same call as the
+    one workload that does not map to the accelerator; same call as the
     reference's CPU/VCG stage).
     """
     import heapq

@@ -1,6 +1,6 @@
 """Variational mesh refinement: photometric vertex optimization.
 
-TPU-native analog of the reference's RefineMesh
+Batched analog of the reference's RefineMesh
 (ref: frame_main/libs/MVS/SceneRefine.cpp:79-192 MeshRefine / :1300
 Scene::RefineMesh and the CUDA twin SceneRefineCUDA.cpp:62-1944, whose
 PTX kernel list — image warps, windowed ZNCC stats, photometric vertex
@@ -178,13 +178,11 @@ def raster_refine_grad(V: jax.Array, faces: jax.Array,
     nf = faces.shape[0]
     npx = 25.0
 
-    # Index-count restructure (round 4; TPU gathers cost per-INDEX, not
-    # per-element — ops/sampling.py): the per-pixel traffic drops from
-    # ~14 indices (fid->tri + 3x V rows + 4 bilinear samples + 6
+    # Index-count restructure: the per-pixel traffic drops from ~14
+    # indices (fid->tri + 3x V rows + 4 bilinear samples + 6
     # scatter-adds) to 3 — one face-table gather, one 16-channel packed
-    # B-tap gather, one face-packed scatter.  Measured on v5e at 640x480
-    # x 8 views / 14 pairs: 0.387 -> 0.117 s/grad-iteration (3.3x; see
-    # eval/refine_bench.py + BASELINE.md round 4).
+    # B-tap gather, one face-packed scatter (eval/refine_bench.py times
+    # it).
 
     # per-face packed table (12, F): 3 vertices + unit normal — also
     # moves the cross/normalize off the per-pixel path

@@ -256,7 +256,7 @@ def label_faces_trws(faces: np.ndarray, quality: np.ndarray,
     reference's OPTIONAL TRW-S texturing solver (ref: the TRWS/LBP
     dispatch in SceneTexture.cpp:65-88, Math/TRWS/MRFEnergy.h).
 
-    TPU-shaped formulation: Kolmogorov's sequential node order (which
+    Data-parallel formulation: Kolmogorov's sequential node order (which
     serializes at one face per step) is replaced by damped synchronous
     sweeps with uniform edge-appearance reweighting gamma_i = 1/deg_i —
     every message updates in parallel as one jitted scan, reusing the
@@ -651,8 +651,8 @@ def texture_mesh(vertices: np.ndarray, faces: np.ndarray,
             patch = patch * 255
         patch = np.clip(patch, 0, 255).astype(np.uint8)
         if scale != 1.0:
-            import cv2
-            patch = cv2.resize(patch, (sw, sh))
+            from hcmvs_tpu.io.images import resize_to
+            patch = resize_to(patch, sh, sw)
         atlas[y_cur:y_cur + sh, x_cur:x_cur + sw] = patch[:sh, :sw]
         placed_area += sw * sh
         # per-corner uvs
@@ -676,8 +676,8 @@ def write_textured_obj(path: str, tm: TexturedMesh) -> None:
     """OBJ + MTL + PNG atlas (ref: Mesh OBJ export, libs/IO/OBJ.cpp)."""
     base = os.path.splitext(path)[0]
     name = os.path.basename(base)
-    import cv2
-    cv2.imwrite(base + ".png", tm.atlas[..., ::-1])
+    from hcmvs_tpu.io.images import write_png
+    write_png(base + ".png", tm.atlas)
     with open(base + ".mtl", "w") as f:
         f.write(f"newmtl textured\nKa 1 1 1\nKd 1 1 1\n"
                 f"map_Kd {name}.png\n")

@@ -2,15 +2,15 @@
 
 The reference keeps its irregular, pointer-heavy runtime in C++ (max-flow
 in frame_main/libs/Math/IBFS, CGAL Delaunay walking, VCG mesh ops); the
-TPU build does the same for the pieces that neither XLA nor Pallas can
-express profitably.  Components:
+JAX build does the same for the pieces that XLA cannot express
+profitably.  Components:
 
 - maxflow: BK-style s-t min-cut (native/maxflow.cpp) — the graph-cut
   surface extraction solver (ref: SceneReconstruct.cpp:58-101).
 
 Build model: no pybind11 in this image, so each component is a plain
 C-ABI shared object compiled on demand with g++ -O3 and cached under
-~/.cache/hcmvs_tpu keyed by source hash; ctypes binds it.  Everything has
+<checkout>/.native_cache keyed by source hash; ctypes binds it.  Everything has
 a pure-Python/scipy fallback, so the package works without a toolchain.
 """
 
@@ -28,7 +28,7 @@ import numpy as np
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _CACHE_DIR = os.environ.get(
     "HCMVS_NATIVE_CACHE",
-    os.path.join(os.path.expanduser("~"), ".cache", "hcmvs_tpu"))
+    os.path.join(os.path.dirname(os.path.dirname(_SRC_DIR)), ".native_cache"))
 
 _libs = {}
 _build_failed = set()

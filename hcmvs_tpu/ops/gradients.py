@@ -1,6 +1,6 @@
 """Image gradient operators.
 
-TPU analog of the reference's gradient map computation
+Batched analog of the reference's gradient map computation
 (ref: frame_main/libs/MVS/SceneDensify.cpp:581-645 InitGraMap — a 3x3 Sobel
 over the gray image whose magnitude gates the texture-adaptive window and
 propagation extent).  Implemented as shifted adds so XLA fuses it into one

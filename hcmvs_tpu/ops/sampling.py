@@ -1,9 +1,8 @@
 """Bilinear image sampling (gather-based).
 
-The TPU analog of the reference's ``TImage::sample()`` bilinear taps
+The batched analog of the reference's ``TImage::sample()`` bilinear taps
 (ref: frame_main/libs/Common/Types.inl) used throughout patch scoring and
-cross-view lookups.  XLA lowers the gathers to dynamic-slice loads; the
-Pallas patch-score kernel has its own fused variant for the hot loop.
+cross-view lookups.  XLA lowers the gathers to dynamic-slice loads.
 """
 
 from __future__ import annotations
@@ -69,9 +68,8 @@ def bilinear_sample_xy(img: jax.Array, x: jax.Array, y: jax.Array,
     module's LAYOUT RULE, see dense/types.py).
 
     The four taps are fetched by ONE gather from a 2x2-tap-packed copy of
-    the image: on TPU a gather costs per-index, not per-element fetched
-    (~7x measured speedup over four separate gathers at 300k indices), and
-    the packing itself is elementwise work that XLA hoists out of the
+    the image (one index per sample instead of four), and the packing
+    itself is elementwise work that XLA hoists out of the
     candidate-scoring loops since the image is loop-invariant.
     """
     h, w = img.shape[:2]
@@ -150,7 +148,7 @@ def nearest_sample_planes(planes: jax.Array, x: jax.Array, y: jax.Array,
                           ) -> Tuple[jax.Array, jax.Array]:
     """Nearest sampling of C planes at shared coordinates with ONE gather:
     ``planes`` is (C, H, W); returns ((C, ...), valid).  Use instead of C
-    separate nearest_sample_xy calls (gathers cost per-index on TPU)."""
+    separate nearest_sample_xy calls (one index per sample, not C)."""
     c, h, w = planes.shape
     xi = jnp.clip(x.astype(jnp.int32), 0, w - 1)
     yi = jnp.clip(y.astype(jnp.int32), 0, h - 1)
@@ -169,9 +167,8 @@ def nearest_sample_planes_batched(planes: jax.Array, x: jax.Array,
     ``planes`` is (V, C, H, W) — V independent maps sampled at per-map
     coordinates x/y (V, ...).  Instead of a vmapped per-map gather, the V
     maps are flattened into one (C, V*H*W) operand and the indices get a
-    per-map offset: XLA's *batched* gather runs measurably slower than a
-    flat one on TPU (measured 107 vs 151 M idx/s at 3.7M indices on v5e —
-    the geo-consistency term's hot op).
+    per-map offset, so the geo-consistency term's hot op is one flat
+    gather rather than XLA's batched gather.
     """
     v, c, h, w = planes.shape
     xi = jnp.clip(x.astype(jnp.int32), 0, w - 1)

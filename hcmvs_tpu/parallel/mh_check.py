@@ -32,8 +32,6 @@ def main() -> int:
     ap.add_argument("--num-processes", type=int, required=True)
     ap.add_argument("--port", type=int, default=9911)
     ap.add_argument("--devices-per-process", type=int, default=4)
-    ap.add_argument("--cache-dir", default=os.environ.get(
-        "HCMVS_TEST_CACHE", "/tmp/hcmvs_test_jax_cache"))
     ap.add_argument("--bench-reps", type=int, default=0,
                     help="also time N reps of the sharded schedule and "
                          "print an MHBENCH line (cross-process "
@@ -41,8 +39,7 @@ def main() -> int:
     ap.add_argument("--backend", default="direct",
                     choices=["direct", "volume"],
                     help="volume = exact scoring through the sigma-volume "
-                         "tables, sharded across processes (the "
-                         "production TPU path under the global mesh)")
+                         "tables, sharded across processes")
     args = ap.parse_args()
 
     flags = os.environ.get("XLA_FLAGS", "")
@@ -53,8 +50,8 @@ def main() -> int:
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", args.cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from hcmvs_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from hcmvs_tpu.parallel import distributed as D
     D.initialize(coordinator_address=f"localhost:{args.port}",

@@ -2,7 +2,7 @@
 
 The reference has no distributed backend at all — pthread pools inside a
 process, files (`mv depthmap ...`) between stages (SURVEY §2.4, run.sh).
-The TPU-native replacement: a ``jax.sharding.Mesh`` with two axes,
+The batched replacement: a ``jax.sharding.Mesh`` with two axes,
 
 - ``view``: data-parallel over reference images — each device estimates a
   slice of the scene's depth maps.  Cross-view reads (the geometric

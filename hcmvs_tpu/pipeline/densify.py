@@ -380,7 +380,7 @@ def densify(scene_path: str, images_dir: str, out_dir: str,
         score = pair_scores(scene.points, scene.point_view_counts,
                             scene.point_view_ids, centers, n)
         nbr_idx, _ = select_neighbors(score, 1)
-        flows = scene_flows(np.stack(grays), nbr_idx)
+        flows = scene_flows(np.stack(grays), nbr_idx, cfg.flow_backend)
 
     semantic = None
     if cfg.use_semantic:
@@ -520,7 +520,7 @@ def densify(scene_path: str, images_dir: str, out_dir: str,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="DensifyPointCloud equivalent (TPU-native)")
+        description="DensifyPointCloud equivalent")
     ap.add_argument("--input-file", required=True)
     ap.add_argument("--images-dir", default=None)
     ap.add_argument("-w", "--working-dir", default="mvs_out")
@@ -561,6 +561,8 @@ def main(argv=None):
                          "'<stem>_l_colored.png' label images (or "
                          "--masks-dir) and save *_labelled.mvs/.ply")
     args = ap.parse_args(argv)
+    from hcmvs_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     flags = dict(f.split("=", 1) for f in args.flags)
     cfg = config_from_cli_flags(flags)
     images_dir = args.images_dir or os.path.dirname(args.input_file)

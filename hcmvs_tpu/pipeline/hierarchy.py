@@ -6,8 +6,8 @@ Replaces the reference's run.sh orchestration (ref: /root/reference/run.sh
 restore@resize1 -> frame_main@resize1, with `mv depthmap normalmap`
 between stages) and the per-stage flag sets (data/*/resize*/run.py).
 
-TPU-native re-design: the five separate OS processes + filesystem handoff
-become one driver where each stage's output maps stay on device and are
+Re-design: the five separate OS processes + filesystem handoff become one
+driver where each stage's output maps stay on device and are
 upsampled into the next stage's initialization (variant A, "read-init";
 ref: frame_main InitDepthMap SceneDensify.cpp:522-558) or attached as
 cross-scale priors (variant B, "triangulate-init + cross-scale prior";
@@ -43,21 +43,27 @@ class Stage:
     cfg: DenseConfig
 
 
-def default_schedule(base: DenseConfig) -> List[Stage]:
+def default_schedule(base: DenseConfig,
+                     finest_level: int = 1) -> List[Stage]:
     """The 5-stage schedule of run.sh with each stage's flag profile
     (ref: data/frame_main/resize{3,2,1}/run.py, data/restore/resize{2,1}/
     run.py — frame_main stages run geometric consistency with read-init,
-    restore stages triangulate-init without geo)."""
+    restore stages triangulate-init without geo).
+
+    The two finest stages run at ``finest_level`` and the ladder climbs
+    two levels above it: levels 3/2/2/1/1 by default, 2/1/1/0/0 with
+    ``finest_level=0`` (full-resolution final stages)."""
     a = base.replace(init_triangulate=0, use_geo_consistency=1,
                      photo2geo=1)
     b = base.replace(init_triangulate=1, use_geo_consistency=0,
                      photo2geo=99, use_semantic=True)
+    top = finest_level
     return [
-        Stage(level=3, variant="A", cfg=a),
-        Stage(level=2, variant="B", cfg=b),
-        Stage(level=2, variant="A", cfg=a),
-        Stage(level=1, variant="B", cfg=b),
-        Stage(level=1, variant="A",
+        Stage(level=top + 2, variant="A", cfg=a),
+        Stage(level=top + 1, variant="B", cfg=b),
+        Stage(level=top + 1, variant="A", cfg=a),
+        Stage(level=top, variant="B", cfg=b),
+        Stage(level=top, variant="A",
               cfg=a.replace(use_semantic=True)),
     ]
 
@@ -86,31 +92,24 @@ def run_hierarchy(tensors_per_level: Dict[int, SceneTensors],
     level's image size (build once per level with
     pipeline.densify.build_scene_tensors on resized images).
 
-    ``checkpoint_dir``: when set, each stage's output state is saved as an
-    orbax checkpoint (sharding-aware — works across multi-host meshes),
-    and ``resume`` restarts from the last completed stage.  This is the
-    TPU-native replacement for run.sh's `mv depthmap normalmap` handoff
-    (ref: /root/reference/run.sh:1-20) — same per-stage resumability, but
-    the artifact is a sharded array checkpoint instead of loose .dmap
-    files (which pipeline.densify still writes for interop).
+    ``checkpoint_dir``: when set, each stage's output state (depth,
+    normal, cost, keys) is saved as ``stage<k>.npz`` there, and
+    ``resume`` restarts from the last completed stage.  This replaces
+    run.sh's `mv depthmap normalmap` handoff (ref:
+    /root/reference/run.sh:1-20) — same per-stage resumability, with the
+    full solver state instead of loose .dmap files (which
+    pipeline.densify still writes for interop).
     """
     key = key if key is not None else jax.random.PRNGKey(0)
     schedule = schedule or default_schedule(base_cfg)
     state = None
     prev_maps = None     # (depth, normal) from the previous stage
     start_stage = 0
-    mngr = None
     if checkpoint_dir is not None:
-        import orbax.checkpoint as ocp
-        mngr = ocp.CheckpointManager(os.path.abspath(checkpoint_dir))
-        latest = mngr.latest_step() if resume else None
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        latest = _latest_stage(checkpoint_dir) if resume else None
         if latest is not None and latest < len(schedule):
-            restored = mngr.restore(latest)
-            state = SceneState(
-                depth=jnp.asarray(restored["depth"]),
-                normal=jnp.asarray(restored["normal"]),
-                cost=jnp.asarray(restored["cost"]),
-                keys=jnp.asarray(restored["keys"]))
+            state = load_stage_state(_stage_path(checkpoint_dir, latest))
             prev_maps = (state.depth, state.normal)
             start_stage = latest + 1
             if verbose:
@@ -155,18 +154,39 @@ def run_hierarchy(tensors_per_level: Dict[int, SceneTensors],
             state = init_scene_state(sub, tensors)
             state = _run_stage(state, tensors, cfg, verbose)
         prev_maps = (state.depth, state.normal)
-        if mngr is not None:
-            import orbax.checkpoint as ocp
-            mngr.save(si, args=ocp.args.StandardSave({
-                "depth": state.depth, "normal": state.normal,
-                "cost": state.cost, "keys": state.keys}))
-            mngr.wait_until_finished()
+        if checkpoint_dir is not None:
+            save_stage_state(_stage_path(checkpoint_dir, si), state)
         if verbose:
             print(f"[hierarchy] stage {si} (level {stage.level}, "
                   f"variant {stage.variant}) done")
-    if mngr is not None:
-        mngr.close()
     return state
+
+
+_STAGE_FIELDS = ("depth", "normal", "cost", "keys")
+
+
+def _stage_path(checkpoint_dir: str, si: int) -> str:
+    return os.path.join(checkpoint_dir, f"stage{si}.npz")
+
+
+def _latest_stage(checkpoint_dir: str) -> Optional[int]:
+    done = [int(n[5:-4]) for n in os.listdir(checkpoint_dir)
+            if n.startswith("stage") and n.endswith(".npz")
+            and n[5:-4].isdigit()]
+    return max(done) if done else None
+
+
+def save_stage_state(path: str, state: SceneState) -> None:
+    """One stage's solver state as an .npz, written atomically (a run
+    killed mid-write leaves the previous stage as the latest)."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **{f: np.asarray(getattr(state, f)) for f in _STAGE_FIELDS})
+    os.replace(tmp, path)
+
+
+def load_stage_state(path: str) -> SceneState:
+    with np.load(path) as z:
+        return SceneState(**{f: jnp.asarray(z[f]) for f in _STAGE_FIELDS})
 
 
 def _run_stage(state: SceneState, tensors: SceneTensors, cfg: DenseConfig,
@@ -231,7 +251,7 @@ def densify_hierarchical(scene_path: str, images_dir: str, out_dir: str,
     """Full hierarchical-cross densification of a `.mvs` scene — the
     run.sh top-level entry (ref: /root/reference/run.sh:1-20): builds the
     per-level scene tensors from resized images, runs the alternating
-    5-stage schedule with orbax stage checkpoints, and writes the final
+    5-stage schedule with per-stage checkpoints, and writes the final
     .dmap maps + fused cloud like pipeline.densify."""
     import os as _os
     from hcmvs_tpu.io.images import (compute_resolution_scale, load_image,
@@ -284,7 +304,8 @@ def densify_hierarchical(scene_path: str, images_dir: str, out_dir: str,
                 score = pair_scores(scene.points, scene.point_view_counts,
                                     scene.point_view_ids, centers, n)
                 nbr1, _ = select_neighbors(score, 1)
-                flows = scene_flows(np.stack(grays), nbr1)
+                flows = scene_flows(np.stack(grays), nbr1,
+                                    base_cfg.flow_backend)
             semantic = None
             if mask_paths is not None:
                 semantic = load_scene_masks(mask_paths, grays[0].shape)
@@ -358,6 +379,9 @@ def main(argv=None):
     ap.add_argument("-w", "--working-dir", default="mvs_hc_out")
     ap.add_argument("--flags", nargs="*", default=[])
     ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--finest-level", type=int, default=1,
+                    help="resolution level of the two final stages (the "
+                         "schedule climbs two levels above it)")
     ap.add_argument("--masks-dir", default=None,
                     help="directory of per-image semantic masks for the "
                          "use-semantic stages")
@@ -367,10 +391,14 @@ def main(argv=None):
                          "prior channel, merged by GenerateFinalPrior "
                          "semantics)")
     args = ap.parse_args(argv)
+    from hcmvs_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     cfg = config_from_cli_flags(dict(f.split("=", 1) for f in args.flags))
     images_dir = args.images_dir or os.path.dirname(args.input_file)
     stats = densify_hierarchical(args.input_file, images_dir,
                                  args.working_dir, cfg,
+                                 schedule=default_schedule(
+                                     cfg, args.finest_level),
                                  resume=not args.no_resume,
                                  masks_dir=args.masks_dir,
                                  priors_dir=args.priors_dir)

@@ -173,6 +173,8 @@ def main(argv=None):
     t.set_defaults(fn=cmd_texture)
 
     args = ap.parse_args(argv)
+    from hcmvs_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -198,6 +198,8 @@ def main(argv=None):
     ap.add_argument("--flags", nargs="*", default=[],
                     help="reference-style dense flag=value pairs")
     args = ap.parse_args(argv)
+    from hcmvs_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from hcmvs_tpu.core.config import config_from_cli_flags
     dense_cfg = config_from_cli_flags(
         dict(f.split("=", 1) for f in args.flags))

@@ -13,7 +13,7 @@ minimal sample size); the (model, k) minimizing NFA gives both the
 model ranking and the data-driven threshold r_k*, significant when
 NFA < 1 (log NFA < 0).
 
-TPU-native formulation: the log-combinatorial tables are precomputed
+Batched formulation: the log-combinatorial tables are precomputed
 host-side per problem size; per hypothesis the residuals are sorted
 (XLA sort) and the k-scan is a vectorized reduction — the whole
 hypothesis batch evaluates as one vmapped graph, no data-dependent

@@ -8,7 +8,7 @@ images at `.mvs` export so the MVS stage sees pinhole cameras (ref:
 MvgMvsPipeline.py:208-210 openMVG_main_openMVG2openMVS; OpenMVS's camera
 model is distortion-free, Camera.h).
 
-TPU-native design: the model acts in normalized camera coordinates,
+Batched design: the model acts in normalized camera coordinates,
   x_d = x_n * (1 + k1 r^2 + k2 r^4 + k3 r^6),   r^2 = |x_n|^2
 with the inverse solved by a fixed-count Newton iteration (jit-friendly —
 no data-dependent loops).  Estimation is ALTERNATED with the pose/point

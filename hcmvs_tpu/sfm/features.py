@@ -8,7 +8,7 @@ shifted-array comparisons (no per-pixel loops), fixed-K top-k selection
 (static shapes for jit), and 128-d gradient-orientation-histogram
 descriptors built from a small number of per-keypoint gathers.
 
-Design notes (TPU):
+Design notes:
 - Everything except the final per-keypoint descriptor sampling is dense
   whole-image arithmetic.
 - K is static; weak images yield masked (score <= 0) keypoints.

@@ -4,7 +4,7 @@ The counterpart of the reference pipeline's GLOBAL preset
 (ref: frame_main/MvgMvsPipeline.py:193-195 step 4 openMVG_main_GlobalSfM —
 openMVG's global pipeline runs L1 rotation averaging and L-infinity / LS
 translation averaging over the epipolar graph, then triangulates tracks
-and bundle-adjusts).  TPU-first formulation:
+and bundle-adjusts).  Data-parallel formulation:
 
 - Pairwise relative poses come from the vmapped essential-matrix RANSAC
   (sfm/two_view.py) over all candidate pairs.

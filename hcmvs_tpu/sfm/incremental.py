@@ -1,6 +1,6 @@
 """Incremental structure-from-motion driver.
 
-The TPU-native replacement for the OpenMVG pipeline the reference shells
+The batched replacement for the OpenMVG pipeline the reference shells
 out to (ref: frame_main/MvgMvsPipeline.py:181-192 — SfMInit_ImageListing,
 ComputeFeatures, ComputeMatches, IncrementalSfM): feature detection,
 matching, two-view init, PnP registration and bundle adjustment all run as

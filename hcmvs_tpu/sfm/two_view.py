@@ -1,7 +1,7 @@
 """Two-view geometry: essential-matrix RANSAC + pose recovery.
 
 Replaces OpenMVG's robust relative-pose estimation (driven from
-frame_main/MvgMvsPipeline.py:190-192 IncrementalSfM).  TPU-first shape:
+frame_main/MvgMvsPipeline.py:190-192 IncrementalSfM).  Accelerator shape:
 all H RANSAC hypotheses are solved simultaneously — a vmapped batch of
 8-point problems (batched SVD) scored by vectorized Sampson distances —
 instead of the CPU's sequential hypothesis loop.

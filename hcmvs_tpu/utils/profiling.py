@@ -1,6 +1,6 @@
 """Tracing / profiling / logging utilities.
 
-The TPU-native replacement for the reference's observability stack
+The replacement for the reference's observability stack
 (ref: TD_TIMER_START/TD_TIMER_GET_FMT scoped timers used at every stage,
 e.g. frame_main/libs/MVS/SceneDensify.cpp:760,3008,3267; Util::Progress
 bars; Util::LogMemoryInfo at shutdown, DensifyPointCloud.cpp:362; and the
@@ -122,9 +122,12 @@ def log_report(logger: Optional[logging.Logger] = None) -> str:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/hcmvs_trace"):
-    """jax.profiler trace around a block (view in TensorBoard/Perfetto)."""
+def trace(log_dir: Optional[str] = None):
+    """jax.profiler trace around a block (view in TensorBoard/Perfetto);
+    a fresh temporary directory unless ``log_dir`` is given."""
+    import tempfile
     import jax
+    log_dir = log_dir or tempfile.mkdtemp(prefix="hcmvs_trace_")
     os.makedirs(log_dir, exist_ok=True)
     jax.profiler.start_trace(log_dir)
     try:

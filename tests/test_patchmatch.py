@@ -84,7 +84,7 @@ def test_gt_plane_scores_better_than_random(scene):
 def test_patchmatch_recovers_plane(scene, score_mode):
     """End-to-end single-pair estimation: photometric-only checkerboard
     PatchMatch must recover the slanted plane's depth (both the exact
-    reference-semantics scoring and the TPU-first warped-image mode).
+    reference-semantics scoring and the approximate warped-image mode).
 
     The warped mode needs more (much cheaper) sweeps to converge — its
     per-sweep cost is ~1/36th of exact."""

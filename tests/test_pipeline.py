@@ -1,12 +1,12 @@
 import os
 
-import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from hcmvs_tpu.core.config import DenseConfig
+from hcmvs_tpu.io.images import write_png
 from hcmvs_tpu.io.mvs import (CameraIntrinsic, ImageRecord, Platform, Pose,
                               SceneMVS, write_mvs)
 from hcmvs_tpu.pipeline.densify import build_scene_tensors, densify
@@ -37,8 +37,8 @@ def _write_scene(tmp_path, sc, n_sparse=60):
         plat.poses.append(Pose(R=np.asarray(cam.R, np.float64),
                                C=np.asarray(cam.C, np.float64)))
         name = f"im{i:04d}.png"
-        cv2.imwrite(str(img_dir / name),
-                    (sc.images[i] * 255).astype(np.uint8))
+        write_png(str(img_dir / name),
+                  (sc.images[i] * 255).astype(np.uint8))
         scene.images.append(ImageRecord(name=name, platform_id=0,
                                         camera_id=0, pose_id=i, id=i))
     # sparse points on the GT plane, visible everywhere
@@ -284,7 +284,7 @@ def test_run_pipeline_sgm_preset(tmp_path):
 def test_full_run_smoke(tmp_path, monkeypatch):
     """The full-product harness (eval/full_run — SfM -> 5-stage
     hierarchy -> mesh -> refine -> texture) composes at smoke size.
-    Keeps the flagship driver from rotting between TPU runs."""
+    Keeps the flagship driver from rotting between device runs."""
     from hcmvs_tpu.eval import full_run
     out = full_run.run(h=120, w=160, n_views=4, cpu=True,
                        refine_scales=1, refine_iters=2,
@@ -322,19 +322,18 @@ def test_project_labels_mode(scene, tmp_path):
     """--project-labels side mode (ref: DensifyPointCloud.cpp:416-433 +
     EstimatePointLabels DepthMap.cpp:2165-2217): every point takes the
     label color of its CLOSEST view's colored mask."""
-    import cv2 as _cv2
     from hcmvs_tpu.io.mvs import read_mvs
     from hcmvs_tpu.io.ply import read_ply
     from hcmvs_tpu.pipeline.densify import project_labels
     scene_path, img_dir = _write_scene(tmp_path, scene)
-    # one solid label color per view (BGR written by cv2)
+    # one solid label color per view, given in BGR order
     cols = [(255, 0, 0), (0, 255, 0), (0, 0, 255)]
     h, w = scene.images[0].shape
     for i, c in enumerate(cols):
         lbl = np.zeros((h, w, 3), np.uint8)
         lbl[:] = c
-        _cv2.imwrite(os.path.join(img_dir, f"im{i:04d}_l_colored.png"),
-                     lbl)
+        write_png(os.path.join(img_dir, f"im{i:04d}_l_colored.png"),
+                  lbl[..., ::-1])
     stats = project_labels(scene_path, img_dir,
                            str(tmp_path / "scene"), verbose=False)
     assert stats["n_label_images"] == 3
@@ -347,7 +346,7 @@ def test_project_labels_mode(scene, tmp_path):
                   sc.points - sc.pose_of(i)[1])[:, 2]
         for i in range(3)])                                # (3, P)
     best = depths.argmin(axis=0)
-    # cv2 writes BGR files; load_image returns RGB; point_colors stored
+    # the files hold RGB; load_image returns RGB; point_colors stored
     # BGR -> expected BGR color of the winning view
     exp_bgr = np.array(cols, np.uint8)[:, ::-1][best][:, ::-1]
     assert (out.point_colors == exp_bgr).all(), (

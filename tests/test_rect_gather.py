@@ -1,8 +1,8 @@
 """Rectified epipolar gather engine (ops/rect_gather.py).
 
-Parity chain: Pallas kernel (interpret) == XLA replica == (where the
-window covers) direct nearest sampling in the source frame, plus the
-coverage diagnostic on typical MVS pair geometry.
+The lookup agrees (where the window covers) with direct nearest sampling
+in the source frame; plus the coverage diagnostic on typical MVS pair
+geometry.
 """
 import jax
 import jax.numpy as jnp
@@ -12,7 +12,7 @@ import pytest
 from hcmvs_tpu.core.camera import Camera
 from hcmvs_tpu.dense.types import make_view_geometry
 from hcmvs_tpu.ops.rect_gather import (build_rect_context, rect_coverage,
-                                       rect_lookup, rect_lookup_xla)
+                                       rect_lookup_xla)
 from hcmvs_tpu.utils.synth import make_plane_scene
 
 H, W, V = 64, 128, 3
@@ -42,14 +42,6 @@ def setup():
     dcand = base + 0.3 * amp * np.sin(yy / 11.0)
     sigma = jnp.asarray(1.0 / dcand, jnp.float32)
     return geom, nbr_maps, ctx, sigma, sc
-
-
-def test_kernel_matches_xla_replica(setup):
-    _, _, ctx, sigma, _ = setup
-    ref = rect_lookup_xla(ctx, sigma)
-    out = rect_lookup(ctx, sigma, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=0, atol=0)
 
 
 def test_coverage_near_total(setup):
@@ -168,7 +160,7 @@ def test_pack_unpack_roundtrip():
 
 def test_rect_lookup_unaligned_size():
     """Unaligned sizes (60x96 -> padded 64x128) tile-pad internally:
-    kernel (interpret) == XLA replica, values valid in the real region."""
+    the output keeps the image shape and is valid in the real region."""
     sc = make_plane_scene(np.random.default_rng(7), h=60, w=96,
                           n_views=3)
     cams = Camera(K=jnp.stack([c.K for c in sc.cameras]),
@@ -181,9 +173,9 @@ def test_rect_lookup_unaligned_size():
     nbr_maps = jnp.full((2, 4, 60, 96), base, jnp.float32)
     ctx = build_rect_context(geom, nbr_maps)
     sigma = jnp.full((60, 96), 1.0 / base, jnp.float32)
-    ref = rect_lookup_xla(ctx, sigma)
-    out = rect_lookup(ctx, sigma, interpret=True)
+    out = np.asarray(rect_lookup_xla(ctx, sigma))
     assert out.shape == (2, 4, 60, 96)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=0, atol=0)
-    assert float((np.asarray(out)[:, 0] > 0).mean()) > 0.5
+    valid = out[:, 0] > 0
+    assert float(valid.mean()) > 0.5
+    # constant maps: every valid lookup reads the constant back
+    np.testing.assert_allclose(out[:, 0][valid], base, rtol=1e-6)

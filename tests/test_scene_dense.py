@@ -247,7 +247,7 @@ def test_pair_assignment_matches_brute_force_optimum():
 
 
 def test_lk_flow_recovers_translation():
-    """TPU-native pyramidal LK recovers a known integer shift."""
+    """Pyramidal LK in JAX recovers a known integer shift."""
     import jax.numpy as jnp
     from hcmvs_tpu.dense.flow import lk_flow
     rng = np.random.default_rng(0)

@@ -6,13 +6,13 @@ data/frame_main/resize1/run.py)."""
 import os
 import sys
 
-import cv2
 import dataclasses
 import jax
 import numpy as np
 import pytest
 
 from hcmvs_tpu.core.config import DenseConfig
+from hcmvs_tpu.io.images import write_png
 from hcmvs_tpu.pipeline.densify import (build_scene_tensors,
                                         find_scene_masks, load_scene_masks)
 
@@ -35,9 +35,9 @@ def _write_masks(tmp_path, sc, color_coded=False):
             rgb = np.zeros((h, w, 3), np.uint8)
             rgb[..., 0] = m * 30
             rgb[..., 2] = 255 - m * 20
-            cv2.imwrite(str(masks_dir / f"im{i:04d}.png"), rgb)
+            write_png(str(masks_dir / f"im{i:04d}.png"), rgb[..., ::-1])
         else:
-            cv2.imwrite(str(masks_dir / f"im{i:04d}.png"), m)
+            write_png(str(masks_dir / f"im{i:04d}.png"), m)
     return str(masks_dir)
 
 

@@ -45,11 +45,11 @@ def _tiny_scene(n_views=8, h=32, w=48):
         d_max=jnp.full((n_views,), sc.d_max, jnp.float32))
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 @pytest.mark.parametrize("n_view,n_tile,backends",
                          [(8, 1, "direct"), (4, 2, "direct"),
                           (8, 1, "rect")])
-def test_sharded_sweeps_match_single_device(n_view, n_tile, backends):
+def test_sharded_sweeps_match_single_device(n_view, n_tile, backends,
+                                            eight_devices):
     """scene_sweeps under a (view, tile) mesh == unsharded execution.
 
     The "rect" variant forces the rectified-epipolar geo backend and the
@@ -87,8 +87,7 @@ def test_sharded_sweeps_match_single_device(n_view, n_tile, backends):
     assert bad_c.mean() < 0.02, bad_c.mean()
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_distributed_ba_matches_single_device():
+def test_distributed_ba_matches_single_device(eight_devices):
     """Bundle adjustment with observations + points sharded over the mesh
     reproduces the single-device solution (distributed Schur: GSPMD
     reduces the camera system across shards)."""
